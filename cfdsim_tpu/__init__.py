@@ -1,6 +1,6 @@
-"""cfdsim_tpu — a TPU-native structured-grid CFD framework.
+"""cfdsim_tpu — a structured-grid and unstructured CFD framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
+Built from scratch in JAX/XLA with the capabilities of the reference
 repo ``Santhosh-Sathyamurthy/cfd-simulations`` (see SURVEY.md):
 
 - incompressible Navier–Stokes via Chorin projection (SUPG stabilization,
@@ -8,12 +8,12 @@ repo ``Santhosh-Sathyamurthy/cfd-simulations`` (see SURVEY.md):
 - compressible Euler finite volume (Rusanov / HLLC / Roe fluxes,
   minmod / superbee limiting, ghost cells)                 [models.compressible]
 - periodic spectral "stable fluids" solver (Kolmogorov)    [models.spectral]
-- pressure-Poisson solvers: Jacobi, red-black SOR (jnp + Pallas),
+- pressure-Poisson solvers: Jacobi, red-black SOR,
   geometric multigrid, FFT/DCT direct                      [solvers.poisson]
 - adaptive CFL time stepping, health monitoring, CFL back-off [runner]
 - HDF5 snapshot I/O with resume                            [io_]
 - frames → MP4/GIF visualization pipeline                  [viz]
-- multi-chip grid sharding over ICI with halo exchange     [parallel]
+- multi-device grid sharding with halo exchange           [parallel]
 
 Everything in the hot path is a pure jitted function over pytree state;
 N steps run as one ``lax.scan`` chunk, the host only sees reduced metrics.

@@ -194,12 +194,7 @@ def cylinder(
     poisson = _poisson_spec(poisson)
     if poisson is None:
         if ref_parity:
-            # the reference's exact pressure budget (v5.py:64-65). The
-            # VMEM-resident Pallas variant ("rbsor_pallas") was measured
-            # at 317 vs 537 steps/s here — the attached chip's ~60-130 µs
-            # kernel-launch overhead × ~10 early-exit chunks/step swamps
-            # the VMEM win at 600×180; revisit the default on production
-            # hardware.
+            # the reference's exact pressure budget (v5.py:64-65)
             poisson = PoissonConfig(
                 method="rbsor", iters=1500, tol=1e-8, check_every=50,
                 omega=1.7,
@@ -254,7 +249,7 @@ def cavity_stretched(
     **cfg_overrides,
 ) -> Case:
     """Lid-driven cavity on a tanh wall-clustered stretched MAC grid with
-    the exact fast-diagonalization (MXU matmul) pressure solve — the
+    the exact fast-diagonalization (dense matmul) pressure solve — the
     capability the reference's FEM path provided via gmsh refinement
     (v1.jl:24-97). Measured at Re=1000 vs the Botella–Peyret spectral
     benchmark: 2.6e-3 at 96² β=1.5 vs 1.26e-2 on the uniform 96² grid
@@ -1015,7 +1010,7 @@ def sphere_stretched(
     """Flow past a sphere on a body+wake-refined stretched 3D MAC grid —
     the boundary-layer tier for the sphere benchmarks: Gaussian grid
     clustering around the body (all three axes) and the near wake (x),
-    exact 3D fast-diagonalization (MXU matmul) projection, TVD
+    exact 3D fast-diagonalization (dense matmul) projection, TVD
     convection, sharp-mask penalization with VOLUME-weighted force
     accounting and an AREA-weighted mass-consistent outflow. At the
     defaults the near-body spacing is ~3-4× finer than uniform
@@ -1348,7 +1343,7 @@ def cavity3d_stretched(
     **cfg_overrides,
 ) -> Case:
     """3D lid-driven cavity on a tanh wall-clustered stretched MAC grid
-    with the exact 3D fast-diagonalization (MXU matmul) pressure solve —
+    with the exact 3D fast-diagonalization (dense matmul) pressure solve —
     the 3D member of the stretched tier (cavity_stretched is 2D); lid at
     z_hi moving in +x as in cavity3d (BASELINE config 5)."""
     from cfdsim_tpu.grid import Grid3D

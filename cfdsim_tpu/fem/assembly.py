@@ -4,7 +4,7 @@ Where Gridap walks elements applying weak-form lambdas (v2.jl:176-226),
 this module evaluates the same bilinear forms as a handful of dense
 einsum contractions batched over the whole element set — gather element
 DOFs, contract against precomputed basis/gradient tables at quadrature
-points (MXU-shaped batched small matmuls), scatter with ``segment_sum``.
+points (batched small matmuls), scatter with ``segment_sum``.
 Static shapes throughout; every operator here is jit/vmap/grad-safe and
 is consumed matrix-free by GMRES (no sparse matrix is ever formed).
 

@@ -7,13 +7,13 @@ the dominant step cost once the momentum solve is warm), while a
 two-level aggregation preconditioner takes the same solve to ~10-20
 iterations (measured 34x/17x fewer for the V-cycle/additive variants).
 
-Design (TPU-first): the setup is a one-time host-side numpy pass —
+Design (accelerator-first): the setup is a one-time host-side numpy pass —
 greedy graph aggregation (Vanek phase 1+2) of the pressure nodes,
 Galerkin coarse operator K_c = P^T K P accumulated in scipy sparse,
 re-aggregated until the coarse size is bounded, then densified and
 inverted once in fp64. At apply time everything is jit-friendly and
 static-shaped: restriction is one ``segment_sum``, the coarse solve is
-one dense (n_c, n_c) matmul (MXU work), prolongation is one gather —
+one dense (n_c, n_c) matmul (matmul work), prolongation is one gather —
 no sparse kernels, no data-dependent control flow. The gather runs in
 the replicated Krylov region (outside any shard_map body), so the
 multi-chip path (parallel/fem_explicit.py) reuses it unchanged.

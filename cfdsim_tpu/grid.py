@@ -3,7 +3,7 @@
 Replaces the reference's per-script ``setup_grid`` (meshgrid + linspace,
 e.g. reference v5.py:269-273, v1_shock.py:234-238, cavity_flow_v1.py:258-262)
 with one static, hashable ``Grid`` object that can be closed over by jitted
-functions. Arrays are laid out (ny, nx) so the x axis maps to TPU lanes.
+functions. Arrays are laid out (ny, nx) so the x axis is the contiguous one.
 """
 
 from __future__ import annotations

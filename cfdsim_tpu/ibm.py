@@ -1,7 +1,7 @@
 """Immersed-boundary geometry: solid masks, smooth IBM forcing shells,
 and potential-flow initialization.
 
-TPU-native equivalents of the reference's mask builders
+JAX equivalents of the reference's mask builders
 (``setup_boundary_masks`` v5.py:275-283, ``setup_wedge`` v1_shock.py:240-248,
 cavity mask cavity_flow_v1.py:264-273) and ``initialize_potential_flow``
 (v5.py:299-314). Masks are computed once with NumPy at setup time and

@@ -1,6 +1,6 @@
 """Compressible Euler finite-volume solver (shock-capturing).
 
-TPU-native rebuild of the reference's shockwave family
+JAX rebuild of the reference's shockwave family
 (``ShockwaveSolver`` v1_shock.py:225-328 — Mach-2 wedge with HLLC/Roe
 fluxes; ``CavityFlowSolver`` cavity_flow_v1.py:248-308 — Mach-2.5
 supersonic cavity with Rusanov fluxes, ghost cells, artificial viscosity).

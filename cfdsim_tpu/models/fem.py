@@ -10,7 +10,7 @@ Taylor-Hood P2-P1 (v1.jl:103-127). Failure handling mirrors
 v2.jl:223-225: a step whose linear solve comes back non-finite or
 unconverged keeps the previous solution.
 
-TPU-first differences from the reference: no per-element loops and no
+Differences from the reference: no per-element loops and no
 sparse-matrix factorization — the operator is applied as batched einsum
 contractions (fem/assembly.py) inside jax's pytree GMRES, with a Jacobi
 (block-diagonal) preconditioner; the whole step is one jitted function
@@ -115,8 +115,8 @@ class FEMConfig:
     # "incremental" (modified Gram-Schmidt) is the robust default: the
     # "batched" classical-Gram-Schmidt path has no fp32 breakdown guard
     # and produced preconditioner-sensitive NaN solves on some meshes;
-    # switch back to "batched" for TPU runs where its parallel
-    # orthogonalization pays and the mesh is known-good
+    # "batched" suits a mesh known to be good where its parallel
+    # orthogonalization pays
     gmres_method: str = "incremental"
     # projection-scheme (make_projection_step) knobs: CG budget for the
     # SPD pressure-increment Poisson, and the rotational form switch
@@ -657,10 +657,9 @@ def make_projection_step(
         return new, metrics
 
     def step(state: FEMState, cfl_scale=1.0):
-        # TPU: fp32 matmul precision for every assembly einsum — the
-        # default bf16 passes stall GMRES near 1e-3 AND are net slower
-        # (more iterations than the cheaper passes save; measured
-        # 3.5 vs 2.7 steps/s at 14.1k tris — BENCHNOTES). No-op on CPU.
+        # fp32 matmul precision for every assembly einsum: a reduced-
+        # precision default (bf16 passes, TF32 on a GPU) stalls GMRES
+        # near 1e-3. No-op on CPU.
         with jax.default_matmul_precision("float32"):
             return _step_impl(state, cfl_scale)
 
@@ -746,10 +745,9 @@ def make_step(
         return new, metrics
 
     def step(state: FEMState, cfl_scale=1.0):
-        # TPU: fp32 matmul precision for every assembly einsum — the
-        # default bf16 passes stall GMRES near 1e-3 AND are net slower
-        # (more iterations than the cheaper passes save; measured
-        # 3.5 vs 2.7 steps/s at 14.1k tris — BENCHNOTES). No-op on CPU.
+        # fp32 matmul precision for every assembly einsum: a reduced-
+        # precision default (bf16 passes, TF32 on a GPU) stalls GMRES
+        # near 1e-3. No-op on CPU.
         with jax.default_matmul_precision("float32"):
             return _step_impl(state, cfl_scale)
 

@@ -1,6 +1,6 @@
 """Incompressible Navier–Stokes: Chorin fractional-step projection.
 
-The TPU-native rebuild of the reference's flagship solver family
+The JAX rebuild of the reference's flagship solver family
 (``OptimizedTurbulentSolver.time_step`` v5.py:375-441 and ancestors
 v1-v4): one pure jitted function advances the whole state one step —
 adaptive dt → LES → SUPG → predictor → BCs → IBM → Poisson projection →
@@ -54,7 +54,7 @@ class IncompressibleState(NamedTuple):
 
 class StepMetrics(NamedTuple):
     """Per-step diagnostics (the reference's log lines v5.py:410-435 as
-    device scalars, reduced on-chip). ``fx``/``fy`` are the hydrodynamic
+    device scalars, reduced on the device). ``fx``/``fy`` are the hydrodynamic
     force components on the immersed body (the momentum the penalization
     removes from the fluid, per unit density) — 0 when no IBM body is
     present; drag/lift coefficients = 2·f/(v∞²·D)."""
@@ -109,11 +109,6 @@ class IncompressibleConfig:
     ibm_ramp_steps: int = 0  # IBM force ramp (v5.py:406)
     masked_poisson: bool = False  # φ frozen inside solids (v5.py:213)
     compute_metrics: bool = True
-    # fuse the explicit central predictor (conv + lap + axpy for u AND v)
-    # into one grid-blocked Pallas pass (ops/pallas/predictor.py): 4 HBM
-    # passes instead of ~10. Requires scheme="central", explicit diffusion,
-    # no LES, no forcing.
-    fused_predictor: bool = False
     # inter-step u/v storage precision (see models/mac.MACConfig.storage:
     # "bf16" halves state HBM bytes, fp32 compute, ~4e-3 per-step
     # rounding — a bandwidth experiment, not an accuracy-neutral default)
@@ -208,17 +203,6 @@ def make_step(
     if cfg.storage not in ("fp32", "bf16"):
         raise ValueError(f"unknown storage {cfg.storage!r}")
     pois_mask = solid_mask if (cfg.masked_poisson and solid_mask is not None) else None
-    use_fused = cfg.fused_predictor
-    if use_fused and (
-        cfg.scheme != "central"
-        or cfg.diffusion != "explicit"
-        or cfg.use_les
-        or forcing is not None
-    ):
-        raise ValueError(
-            "fused_predictor requires scheme='central', explicit diffusion, "
-            "no LES, and no forcing"
-        )
 
     def step(state: IncompressibleState, cfl_scale) -> tuple:
         u, v, p = state.u, state.v, state.p
@@ -237,26 +221,26 @@ def make_step(
 
         dt = _adaptive_dt(cfg, u, v, nu_t, state.step, cfl_scale)
 
-        # --- convection (v5.py:392-399); the fused-Pallas predictor
-        # computes convection inside its kernel
-        if use_fused:
-            conv_u = conv_v = None
-        elif cfg.scheme in ("supg", "supg_refparity"):
-            tau = supg_tau(u, v, dx, dy, dt, nu_eff)
-            parity = cfg.scheme == "supg_refparity"
-            conv_u = convection_supg(u, v, u, dx, dy, tau, ref_parity=parity)
-            conv_v = convection_supg(u, v, v, dx, dy, tau, ref_parity=parity)
-        elif cfg.scheme == "upwind":
-            conv_u = convection_upwind(u, v, u, dx, dy)
-            conv_v = convection_upwind(u, v, v, dx, dy)
-        elif cfg.scheme == "tvd":
-            conv_u = convection_tvd(u, v, u, dx, dy)
-            conv_v = convection_tvd(u, v, v, dx, dy)
-        elif cfg.scheme == "central":
-            conv_u = convection_central(u, v, u, dx, dy)
-            conv_v = convection_central(u, v, v, dx, dy)
-        else:
-            raise ValueError(f"unknown scheme {cfg.scheme!r}")
+        # --- convection (v5.py:392-399)
+        # (convection and the explicit update share the "predictor" scope,
+        # so a profiler trace attributes their fusions to one stage)
+        with jax.named_scope("predictor"):
+            if cfg.scheme in ("supg", "supg_refparity"):
+                tau = supg_tau(u, v, dx, dy, dt, nu_eff)
+                parity = cfg.scheme == "supg_refparity"
+                conv_u = convection_supg(u, v, u, dx, dy, tau, ref_parity=parity)
+                conv_v = convection_supg(u, v, v, dx, dy, tau, ref_parity=parity)
+            elif cfg.scheme == "upwind":
+                conv_u = convection_upwind(u, v, u, dx, dy)
+                conv_v = convection_upwind(u, v, v, dx, dy)
+            elif cfg.scheme == "tvd":
+                conv_u = convection_tvd(u, v, u, dx, dy)
+                conv_v = convection_tvd(u, v, v, dx, dy)
+            elif cfg.scheme == "central":
+                conv_u = convection_central(u, v, u, dx, dy)
+                conv_v = convection_central(u, v, v, dx, dy)
+            else:
+                raise ValueError(f"unknown scheme {cfg.scheme!r}")
 
         # --- diffusion + predictor (v5.py:400-403)
         if cfg.diffusion == "implicit":
@@ -310,21 +294,15 @@ def make_step(
                     0, cfg.implicit_iters, helmholtz_iter,
                     bc_fn(bu, bv, state.step, state.t),
                 )
-        elif use_fused:
-            from cfdsim_tpu.ops.pallas.predictor import fused_predictor_central
-
-            u_star, v_star = fused_predictor_central(
-                u, v, dt, cfg.nu + cfg.artificial_viscosity, dx, dy
-            )
-            u_star, v_star = bc_fn(u_star, v_star, state.step, state.t)
         else:
-            lap_u = laplacian_coeff(u, dx, dy, nu_eff)
-            lap_v = laplacian_coeff(v, dx, dy, nu_eff)
-            u_star = u + dt * (lap_u - conv_u)
-            v_star = v + dt * (lap_v - conv_v)
-            if forcing is not None:
-                u_star = u_star + dt * forcing[0]
-                v_star = v_star + dt * forcing[1]
+            with jax.named_scope("predictor"):
+                lap_u = laplacian_coeff(u, dx, dy, nu_eff)
+                lap_v = laplacian_coeff(v, dx, dy, nu_eff)
+                u_star = u + dt * (lap_u - conv_u)
+                v_star = v + dt * (lap_v - conv_v)
+                if forcing is not None:
+                    u_star = u_star + dt * forcing[0]
+                    v_star = v_star + dt * forcing[1]
             u_star, v_star = bc_fn(u_star, v_star, state.step, state.t)
 
         # --- IBM on the predictor (v5.py:405-407). The damped momentum is

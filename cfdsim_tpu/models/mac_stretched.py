@@ -3,10 +3,10 @@
 This closes the capability the reference obtained from its gmsh/FEM path
 (v1.jl:24-97: boundary-layer refinement near walls and the cylinder,
 h_near=0.02 → h_far=0.2): grid lines cluster where the physics needs
-resolution while the discretization stays structured and TPU-shaped. The
+resolution while the discretization stays structured. The
 pressure projection stays *exact* — the separable stretched operator is
 solved directly by the fast-diagonalization method (``solvers/fdm.py``),
-four dense MXU matmuls instead of the uniform grid's FFT-DCT.
+four dense matmuls instead of the uniform grid's FFT-DCT.
 
 Layout matches ``models/mac.py`` (u on x-faces (ny, nx+1), v on y-faces
 (ny+1, nx), p at centers); all metric coefficients (cell widths, center
@@ -398,7 +398,7 @@ def make_step(
                     fy = fy + jnp.sum(dv_mb * area_v_mb) / dt
 
             div_star = divergence(u_star, v_star)
-            phi = solve_p(div_star / dt)  # exact FDM (4 MXU matmuls)
+            phi = solve_p(div_star / dt)  # exact FDM (4 dense matmuls)
             # (incremental: phi is the increment; total p accumulated below)
             u_new = u_star.at[:, 1:-1].add(
                 -dt * (phi[:, 1:] - phi[:, :-1]) * inv_dcx

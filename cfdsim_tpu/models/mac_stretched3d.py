@@ -7,10 +7,10 @@ in divergence form with metric-weighted interpolants (central, or
 upwind / van-Leer-MUSCL donor values on the nonuniform metrics —
 ``scheme``), flux-form diffusion, and the *exact* pressure projection
 via the 3D
-fast-diagonalization method (solvers/fdm.py make_fdm_solver_3d — six MXU
+fast-diagonalization method (solvers/fdm.py make_fdm_solver_3d — six dense
 matmuls, the stretched analog of the 3D DCT). Boundary-layer clustering in
 3D is the capability the reference's gmsh/FEM path was meant for
-(v1.jl:24-97), kept structured and TPU-shaped.
+(v1.jl:24-97), kept structured.
 
 Layout matches models/mac3d.py: u (nz, ny, nx+1), v (nz, ny+1, nx),
 w (nz+1, ny, nx), p (nz, ny, nx); lid at z_hi moving in +x for the cavity

@@ -1,6 +1,6 @@
 """Periodic spectral "stable fluids" solver (Kolmogorov flow).
 
-TPU-native rebuild of the reference's FFTW solver
+JAX rebuild of the reference's FFTW solver
 (julia/youtube_kolmogorov_turbulence/plot.jl:23-167): per step —
 (1) sinusoidal body force, (2) semi-Lagrangian self-advection by
 backtracing + bilinear interpolation, (3) mean-velocity subtraction,

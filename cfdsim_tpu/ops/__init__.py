@@ -1,5 +1,5 @@
 """Stencil and numerical operators (the reference's Numba kernel tier,
-v5.py:96-257, rebuilt as XLA-fusable jnp ops plus Pallas kernels)."""
+v5.py:96-257, rebuilt as XLA-fusable jnp ops)."""
 
 from cfdsim_tpu.ops.stencil import (
     gradient,

@@ -1,6 +1,6 @@
 """Convection operators: first-order upwind and SUPG-stabilized central.
 
-TPU-native equivalents of the reference's convection kernels
+JAX equivalents of the reference's convection kernels
 (``compute_convection_fast`` v5.py:112-125, ``compute_convection_supg_fast``
 v5.py:127-147, ``compute_supg_stabilization_fast`` v5.py:149-162). The
 branchy per-cell upwind selects become ``jnp.where`` masks that the VPU

@@ -1,6 +1,6 @@
 """Smagorinsky LES subgrid viscosity.
 
-TPU-native equivalent of reference ``compute_smagorinsky_viscosity_fast``
+JAX equivalent of reference ``compute_smagorinsky_viscosity_fast``
 (v5.py:96-110): ν_t = (C_s Δ)² |S| with Δ = sqrt(dx·dy) and one-sided
 forward differences for the strain-rate tensor, zero on the boundary frame.
 """

@@ -1,6 +1,6 @@
 """Core finite-difference stencil operators.
 
-TPU-native replacements for the reference's Numba stencil kernels
+JAX replacements for the reference's Numba stencil kernels
 (gradient/divergence/laplacian/vorticity, reference v5.py:164-200, 365-373).
 Instead of explicit ``prange`` loops, each operator is expressed with shifted
 slices on the interior; XLA fuses chains of these into single VPU passes over

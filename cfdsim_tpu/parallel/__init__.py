@@ -1,6 +1,6 @@
 """Multi-chip parallelism: 2D spatial domain decomposition over a device
 mesh (SURVEY.md §2.6 — the reference has no distributed compute at all;
-this module is the ICI-native scaling story).
+this module is the multi-device scaling story).
 
 Complementary paths:
 

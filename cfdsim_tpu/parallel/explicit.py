@@ -7,7 +7,7 @@ scheduling at scale. Inside one ``shard_map`` over the ("y","x") mesh, a
 full Chorin projection step runs on local blocks:
 
 - stencils: ``lax.ppermute`` halo exchange per application (ghost-cell
-  swaps over ICI — the reference's NG ghost layout, cavity_flow_v1.py:
+  swaps between devices — the reference's NG ghost layout, cavity_flow_v1.py:
   258-262, made inter-chip), zero-frame semantics restored with a
   global-interior mask; width-2 halos + global edge clamps for the TVD
   scheme's 5-point faces;

@@ -295,10 +295,9 @@ def make_step(
         return new, metrics
 
     def step(state: FEMState, cfl_scale=1.0):
-        # TPU: fp32 matmul precision for every assembly einsum — the
-        # default bf16 passes stall GMRES near 1e-3 AND are net slower
-        # (more iterations than the cheaper passes save; measured
-        # 3.5 vs 2.7 steps/s at 14.1k tris — BENCHNOTES). No-op on CPU.
+        # fp32 matmul precision for every assembly einsum: a reduced-
+        # precision default (bf16 passes, TF32 on a GPU) stalls GMRES
+        # near 1e-3. No-op on CPU.
         with jax.default_matmul_precision("float32"):
             return _step_impl(state, cfl_scale)
 
@@ -580,10 +579,9 @@ def make_projection_step(
         return new, metrics
 
     def step(state: FEMState, cfl_scale=1.0):
-        # TPU: fp32 matmul precision for every assembly einsum — the
-        # default bf16 passes stall GMRES near 1e-3 AND are net slower
-        # (more iterations than the cheaper passes save; measured
-        # 3.5 vs 2.7 steps/s at 14.1k tris — BENCHNOTES). No-op on CPU.
+        # fp32 matmul precision for every assembly einsum: a reduced-
+        # precision default (bf16 passes, TF32 on a GPU) stalls GMRES
+        # near 1e-3. No-op on CPU.
         with jax.default_matmul_precision("float32"):
             return _step_impl(state, cfl_scale)
 

@@ -2,7 +2,7 @@
 
 The reference's ghost-cell layout (NG=2, cavity_flow_v1.py:258-262) made
 inter-chip: each device holds an (ny/py, nx/px) block of the field and
-swaps edge lines with its mesh neighbors over ICI before applying a
+swaps edge lines with its mesh neighbors before applying a
 stencil. Corner halos are covered by exchanging the already-y-padded block
 along x. Non-periodic global boundaries receive zero halos from the
 non-circular permutation, then get clamped (ghost = edge) for the Neumann

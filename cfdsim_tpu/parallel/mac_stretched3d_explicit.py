@@ -8,7 +8,7 @@ coefficient enters as a ``lax.dynamic_slice`` of an edge-padded global
 vector (never a gather — backend miscompile, see CLAUDE.md), z metrics
 are plain local constants, and the projection is the exact distributed
 3D fast-diagonalization solve (``transforms.make_fdm_poisson3d_local`` —
-MXU eigenbasis matmuls between all_to_alls).
+dense eigenbasis matmuls between all_to_alls).
 
 Equality with the single-device ``mac_stretched3d.make_step`` on an
 8-device mesh: tests/test_mac3d_explicit.py (stretched section).

@@ -9,7 +9,7 @@ looked up per position from the global per-axis vectors by *global index*
 indices are iota-based so XLA lowers them to slices). The pressure
 projection stays exact across the mesh via the distributed
 fast-diagonalization solve (``transforms.make_fdm_poisson_local``, dense
-eigenbasis matmuls on locally-complete pencil axes → MXU work + six
+eigenbasis matmuls on locally-complete pencil axes → matmul work + six
 all_to_alls).
 
 Equality with the single-device ``mac_stretched.make_step`` on an

@@ -24,8 +24,8 @@ def make_grid_mesh(
 ) -> Mesh:
     """A 2D mesh with axes ("y", "x") for sharding (ny, nx) fields.
 
-    On a real slice the device order follows the ICI torus so neighboring
-    shards sit on neighboring chips and halo exchange rides ICI links.
+    The mesh follows the algorithm alone: the cards of one host are
+    joined all to all (NVLink), so no device order is preferred.
     """
     devices = list(devices if devices is not None else jax.devices())
     if n_devices is not None:
@@ -54,10 +54,10 @@ def init_distributed(
     process_id: int | None = None,
 ) -> None:
     """Multi-host bring-up: call once per host before building the mesh
-    (``jax.distributed.initialize``; on Cloud TPU pods all arguments are
-    auto-detected from the metadata server). After this, ``jax.devices()``
-    spans every host and ``make_grid_mesh`` lays shards out over the full
-    ICI/DCN topology."""
+    (``jax.distributed.initialize``; pass the coordinator address,
+    process count and id — nothing detects a cluster here). After this,
+    ``jax.devices()`` spans every host and ``make_grid_mesh`` lays shards
+    out over all of them."""
     import jax
 
     jax.distributed.initialize(

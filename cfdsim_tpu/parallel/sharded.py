@@ -51,7 +51,7 @@ def make_sharded_step(step_fn, mesh: Mesh):
     """Jit a ``step(state, cfl_scale) -> (state, metrics)`` function for a
     state placed on the mesh (via ``shard_state``) — jit propagates the
     committed input shardings and XLA's SPMD partitioner turns every
-    shifted-slice stencil into local compute plus ICI halo
+    shifted-slice stencil into local compute plus halo
     collective-permutes. Call as ``step(state, cfl_scale)``."""
     del mesh  # placement is carried by the state's committed shardings
     return jax.jit(step_fn)
@@ -68,7 +68,7 @@ def make_sharded_poisson(
     each full sweep performs two halo exchanges (one per color) so the
     black half reads freshly updated red values from neighboring shards —
     the exact Gauss–Seidel ordering of the single-device kernel, with
-    ghost-cell swaps over ICI instead of shared memory."""
+    ghost-cell swaps between devices instead of shared memory."""
     py = mesh.shape["y"]
     px = mesh.shape["x"]
     ax = 1.0 / (dx * dx)

@@ -5,7 +5,7 @@ distributed-FFT layout: ``lax.all_to_all`` within one mesh axis converts a
 (ny_l, nx_l) block into a pencil holding the *full* extent of one array
 axis (rows-local-full-x or cols-local-full-y), the 1D transform runs
 locally on the complete lines, and the inverse all_to_all restores the
-block layout. On hardware the all_to_alls ride ICI.
+block layout. On hardware the all_to_alls cross devices.
 
 This gives the explicit-comm path the two exact direct solvers the GSPMD
 path gets from XLA's sharded FFT:
@@ -207,7 +207,7 @@ def make_fdm_poisson_local(hx, hy, py: int, px: int,
     """Distributed fast-diagonalization Poisson solve for *stretched*
     grids (solvers/fdm.py made multi-chip): returns ``solve(rhs_b)`` for
     use inside shard_map over ("y","x"). The dense eigenbasis matmuls run
-    on locally-complete pencil axes (MXU work), with the same six
+    on locally-complete pencil axes (matmul work), with the same six
     all_to_alls as ``dct_poisson_local``; the eigenvalue division happens
     in the y-pencil layout at global spectral indices."""
     import numpy as np
@@ -232,8 +232,9 @@ def make_fdm_poisson_local(hx, hy, py: int, px: int,
     ly_c = jnp.asarray(ly, jnp.float32)
 
     def solve(rhs_b):
-        # fp32 matmul precision: TPU bf16 default breaks the exactness
-        # of the eigenbasis transforms (solvers/fdm.py, BENCHNOTES)
+        # fp32 matmul precision: a reduced-precision default (bf16, or
+        # TF32 on a GPU) breaks the exactness of the eigenbasis
+        # transforms (solvers/fdm.py)
         with jax.default_matmul_precision("float32"):
             return _solve(rhs_b)
 

@@ -1,7 +1,7 @@
 """Simulation driver: chunked on-device stepping with host-side control.
 
 The reference's ``main()`` while-loops (v5.py:615-698,
-cavity_flow_v1.py:457-527) rebuilt TPU-first: the hot loop runs entirely on
+cavity_flow_v1.py:457-527) rebuilt accelerator-first: the hot loop runs entirely on
 device as jitted ``lax.scan`` chunks; between chunks the host reads only
 reduced metric scalars to do health checks, CFL back-off, snapshots,
 progress and the wall-clock kill switch. Fields cross to the host only at

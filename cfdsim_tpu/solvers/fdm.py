@@ -7,8 +7,8 @@ but each 1D operator is similar to a symmetric tridiagonal matrix, so
 
     L p = Ly @ p + p @ Lxᵀ = r    ⇒    p = Vy [ (Vy⁻¹ r Vx⁻ᵀ) ⊘ Λ ] Vxᵀ,
 
-with Λ_{jk} = λy_j + λx_k. The four dense (n×n)·(n×m) transforms run on
-the MXU — the TPU-idiomatic replacement for the FFT, and the only exact
+with Λ_{jk} = λy_j + λx_k. The four dense (n×n)·(n×m) transforms are
+plain matmuls — the replacement for the FFT, and the only exact
 direct method once the spacing is nonuniform. Eigendecompositions are
 precomputed once in float64 NumPy at setup and closed over as constants.
 
@@ -84,7 +84,7 @@ def make_fdm_solver(hx, hy, nullspace_tol: float = 1e-10, eigs=None):
     """Build an exact Neumann Poisson solver for a stretched cell-centered
     grid: ``solve(rhs) -> phi`` with ∇·(∇phi) = rhs in the FV sense and
     the constant nullspace mode projected out. All heavy work is 4 dense
-    matmuls (MXU). ``eigs=((lx,Vx,Vxi),(ly,Vy,Vyi))`` skips the numeric
+    matmuls. ``eigs=((lx,Vx,Vxi),(ly,Vy,Vyi))`` skips the numeric
     eigendecomposition (uniform grids have an analytic basis)."""
     hx = np.asarray(hx, np.float64)
     hy = np.asarray(hy, np.float64)
@@ -105,9 +105,9 @@ def make_fdm_solver(hx, hy, nullspace_tol: float = 1e-10, eigs=None):
     inv_lam_c = jnp.asarray(inv_lam, jnp.float32)
 
     def solve(rhs):
-        # fp32 matmul precision: the TPU default bf16 passes turn this
-        # "exact" solve into a 35%-residual one (measured, BENCHNOTES
-        # "TPU matmul precision"); no-op on CPU
+        # fp32 matmul precision: a reduced-precision default (bf16
+        # passes, or TF32 on a GPU) turns this "exact" solve into one
+        # with a large residual (bf16 left 35%); no-op on CPU
         with jax.default_matmul_precision("float32"):
             rhat = Vyi_c @ rhs @ VxiT_c
             qhat = rhat * inv_lam_c
@@ -119,7 +119,7 @@ def make_fdm_solver(hx, hy, nullspace_tol: float = 1e-10, eigs=None):
 def make_fdm_solver_3d(hx, hy, hz, nullspace_tol: float = 1e-10):
     """3D fast-diagonalization Neumann Poisson solver on a stretched
     cell-centered grid: L = Lz ⊕ Ly ⊕ Lx, solved by six dense eigenbasis
-    matmuls (MXU) + one elementwise spectral division — the 3D analog of
+    matmuls + one elementwise spectral division — the 3D analog of
     ``make_fdm_solver`` and the stretched analog of the 3D DCT solve
     (solvers/poisson3d.py)."""
     hx = np.asarray(hx, np.float64)

@@ -13,7 +13,7 @@ forward/inverse transform pair replaces the damped-Jacobi iteration
 O((ρ_J)^iters) error, at FFT cost.
 
 DST-I of length m is computed as the imaginary part of an FFT of the odd
-extension (length 2(m+1)) — TPU-friendly, no scatter/gather.
+extension (length 2(m+1)) — no scatter/gather.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ per step). Here every solver takes whole left/right state *arrays* for one
 sweep direction and returns the full face-flux array in one fused VPU pass.
 
 State layout is component-leading: U has shape (4, ny, nx) with components
-(ρ, ρu, ρv, ρE) so the trailing two axes map onto TPU (sublane, lane)
+(ρ, ρu, ρv, ρE) so the trailing two axes are the grid's (y, x)
 tiling. ``axis=1`` means x-faces (flux of F), ``axis=0`` y-faces (G).
 
 Parity references: ``compute_fluxes`` v1_shock.py:84-95, ``hllc_solver``

@@ -1,43 +1,49 @@
-"""Persistent XLA compilation cache (opt-in).
+"""Persistent XLA compilation cache.
 
-Long ``lax.scan`` chunks over implicit solvers compile slowly on the
-XLA CPU backend (tens of minutes at 10k+ FEM elements — the compiler
-constant-folds the closed-over element tables into the loop body).
-jax's persistent compilation cache makes relaunches of the SAME
-configuration near-instant: measured 14.3 s → 8.1 s on a small FEM
-chunk, and it skips the constant-folding entirely on a hit. Keys cover
-the jaxpr including inlined constants, so a different mesh is a miss.
+Long ``lax.scan`` chunks compile slowly (minutes for the large FEM
+chunks, whose element tables XLA constant-folds into the loop body), and
+a relaunch of the same configuration pays that again. JAX's persistent
+compilation cache makes the relaunch near-instant. Its keys cover the
+jaxpr including inlined constants, so a different mesh is a miss; the
+directory is part of the key too, so it stays at one fixed path.
 
-Opt-in because the CPU AOT loader logs machine-feature warnings
-(pseudo-features like prefer-no-scatter don't round-trip) — benign when
-the cache directory stays on the machine that wrote it, which is the
-intended single-host use.
+Where the cache lives:
 
-Enable programmatically (before the first compilation)::
+- ``JAX_COMPILATION_CACHE_DIR``, when set: JAX reads it itself and the
+  program sets no other directory;
+- otherwise ``<checkout>/.jax_cache`` (listed in ``.gitignore``).
 
-    from cfdsim_tpu.utils.cache import enable_compilation_cache
-    enable_compilation_cache()            # ~/.cache/cfdsim_tpu_xla
-
-or via the CLI with ``CFDSIM_COMPILE_CACHE=/path python -m cfdsim_tpu …``.
+The CLI, ``bench.py`` and ``chip_smoke.py`` call
+:func:`enable_compilation_cache` at start-up, before the first
+compilation.
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import jax
 
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+CHECKOUT_CACHE = Path(__file__).resolve().parents[2] / ".jax_cache"
 
-def enable_compilation_cache(
-    path: str = "~/.cache/cfdsim_tpu_xla",
-    min_compile_secs: float = 2.0,
-) -> Path:
-    """Point jax's persistent compilation cache at ``path`` (created if
-    missing). Call before any compilation; returns the resolved path."""
-    p = Path(path).expanduser()
-    p.mkdir(parents=True, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", str(p))
+
+def compile_cache_dir() -> Path:
+    """The directory the persistent compilation cache uses."""
+    env = os.environ.get(ENV_VAR)
+    return Path(env) if env else CHECKOUT_CACHE
+
+
+def enable_compilation_cache(min_compile_secs: float = 2.0) -> Path:
+    """Turn on the persistent compilation cache (see the module docstring
+    for where it lives) and return its directory. Call before any
+    compilation."""
+    path = compile_cache_dir()
+    if not os.environ.get(ENV_VAR):
+        path.mkdir(parents=True, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", str(path))
     jax.config.update(
         "jax_persistent_cache_min_compile_time_secs", float(min_compile_secs)
     )
-    return p
+    return path

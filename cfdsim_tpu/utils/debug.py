@@ -1,6 +1,6 @@
 """Numerical sanitizers and debug instrumentation.
 
-The TPU-native answer to SURVEY.md §5 "race detection / sanitizers": the
+The JAX answer to SURVEY.md §5 "race detection / sanitizers": the
 reference's only guards are in-loop NaN checks and value clipping
 (v5.py:600-602, cavity_flow_v1.py:206-215). Under XLA, determinism is free
 and data races are impossible by construction; what remains is numerical

@@ -9,7 +9,7 @@ The reference's spectral family (plot.jl) evolves in Fourier space but
 never reports spectra; this utility closes that diagnostic gap for all
 tiers (any cell-centered velocity field works).
 
-TPU notes: one rfftn + elementwise binning via a precomputed shell-id
+Accelerator notes: one rfftn + elementwise binning via a precomputed shell-id
 matrix and a segment-sum — everything static-shaped; jit-safe. The
 free-slip TGV box is handled by even mirror extension (the [0,π]³
 symmetry-reduced box extends to the full 2π-periodic TGV, so a

@@ -1,8 +1,8 @@
 """Frames → MP4/GIF assembly.
 
 The reference shells out to ffmpeg (animate_cylinder.py:20-73,
-video_generator.jl:32-79, libx264 MP4 + palette-optimized GIF). This rig
-has no ffmpeg binary, so: MP4 via matplotlib's FFMpegWriter when ffmpeg
+video_generator.jl:32-79, libx264 MP4 + palette-optimized GIF). Here
+ffmpeg is optional: MP4 via matplotlib's FFMpegWriter when ffmpeg
 exists, GIF via the two-pass palette pipeline — ffmpeg
 palettegen/paletteuse (video_generator.jl:32-79) when available, else a
 Pillow equivalent (one global adaptive palette quantized from a frame

@@ -15,7 +15,7 @@ This driver demonstrates it end-to-end on the staggered (MAC) solver:
 3. report the recovered coefficients.
 
 The reference repository has no adjoint capability at all; this is the
-kind of thing the TPU-native/JAX design gives for free (see also the
+kind of thing the JAX design gives for free (see also the
 FEM tier's implicit-adjoint `custom_vjp` solve, models/fem.py).
 
 Usage: python examples/adjoint_forcing.py [--n 48] [--steps 200]

@@ -8,7 +8,7 @@ bf16-*matmul* FDM incident (35% residual; solvers/fdm.py forces fp32
 matmul precision since).
 
 Measures marginal cell-updates/s (bench.py methodology: the per-call
-relay constant cancels between two chunk lengths) for storage="fp32" vs
+dispatch constant cancels between two chunk lengths) for storage="fp32" vs
 "bf16" on the collocated and MAC tiers at --n sizes, prints one row per
 (tier, n, storage) plus the speedup.
 
@@ -39,8 +39,7 @@ def measure(tier, n, storage, short=100, long=600):
         case = lid_cavity(
             n=n, Re=1000.0,
             poisson=PoissonConfig(method="dct", dct_variant="auto"),
-            compute_metrics=False, fused_predictor=n >= 1024,
-            storage=storage)
+            compute_metrics=False, storage=storage)
     else:
         case = lid_cavity_mac(
             n=n, Re=1000.0, poisson=PoissonConfig(method="dct"),

@@ -40,10 +40,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax
-
-if os.environ.get("CFDSIM_PLATFORM"):
-    jax.config.update("jax_platforms", os.environ["CFDSIM_PLATFORM"])
-
 import jax.numpy as jnp
 import numpy as np
 

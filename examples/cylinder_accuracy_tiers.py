@@ -1,6 +1,6 @@
 """The cylinder across the three solver tiers: collocated (reference
 parity), uniform MAC (exact projection + TVD), and stretched MAC
-(body/wake-refined grid + MXU fast-diagonalization Poisson).
+(body/wake-refined grid + dense fast-diagonalization Poisson).
 
 Runs each tier at a comparable cost budget, measures the Strouhal number
 from a wake probe and the drag/lift coefficients from the IBM

@@ -1,5 +1,5 @@
 """Unstructured-FEM cylinder flow — the reference's Julia/Gridap driver
-(v2.jl:373-439 ``run_efficient_simulation``) on the TPU-native FEM tier.
+(v2.jl:373-439 ``run_efficient_simulation``) on the JAX FEM tier.
 
 Per-Re loop: graded mesh → steady Stokes init → semi-implicit NS steps
 (one jitted GMRES solve per step, scanned in chunks) → sampled-field

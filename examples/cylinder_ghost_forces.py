@@ -8,7 +8,7 @@ blockage. The ghost scheme places no-slip exactly on r = R, so the
 residual offset should be mostly the blockage. Drag/lift from the
 momentum-exchange force, Strouhal from the tail FFT of the lift.
 
-Run (TPU, ~10 min per case at defaults):
+Run (accelerator; time on the H100 not measured):
     python examples/cylinder_ghost_forces.py --re 100 --ibm ghost --t 150
 """
 

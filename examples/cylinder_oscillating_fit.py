@@ -11,7 +11,7 @@ penalization ladder (uniform 20 c/D: C_D +22%; stretched 70 c/D:
 +3.1%); `--ibm ghost` runs the moving sharp-interface ghost forcing
 (ibm_ghost.moving_ghost_forcing_2d) on the uniform grid.
 
-Run (TPU, ~10-20 min):
+Run (accelerator; time on the H100 not measured):
     python examples/cylinder_oscillating_fit.py --ibm ghost --periods 4
 """
 

@@ -1,4 +1,4 @@
-"""The reference's flagship v5 workflow, end to end, TPU-native.
+"""The reference's flagship v5 workflow, end to end, in JAX.
 
 Reproduces `python/flow_over_cylinder (Fischer)/v5.py main()` (reference
 v5.py:615-698): Re=600 flow over a cylinder on a 600×180 grid with SUPG,

@@ -16,11 +16,10 @@ friction peak and the injection shell — the stationary-inverse-cascade
 diagnostic the round-4 condensate caveat called for (VERDICT r4 #4).
 
 Usage: python examples/kolmogorov_spectrum.py [--n 256] [--t 40]
-       [--alpha 0.15] (CFDSIM_PLATFORM=cpu to force CPU)
+       [--alpha 0.15] (JAX_PLATFORMS=cpu to force CPU)
 """
 
 import argparse
-import os
 import sys
 import time
 from pathlib import Path
@@ -28,10 +27,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax
-
-if os.environ.get("CFDSIM_PLATFORM"):
-    jax.config.update("jax_platforms", os.environ["CFDSIM_PLATFORM"])
-
 import jax.numpy as jnp
 import numpy as np
 

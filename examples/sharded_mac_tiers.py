@@ -7,21 +7,16 @@ uniform (exact distributed DCT projection), 2D wall-clustered stretched
 post-projection divergence (fp32 roundoff across the mesh: the whole
 point of the staggered tier survives sharding).
 
-Run:  CFDSIM_PLATFORM=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+Run:  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
          python examples/sharded_mac_tiers.py
 """
 
-import os
 import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax
-
-if os.environ.get("CFDSIM_PLATFORM"):
-    jax.config.update("jax_platforms", os.environ["CFDSIM_PLATFORM"])
-
 import jax.numpy as jnp
 import numpy as np
 

@@ -2,15 +2,14 @@
 
 Runs the same cavity step single-device and sharded over an N-device 2D
 mesh, verifies bitwise-equivalent physics, and reports per-configuration
-timing. On real hardware the mesh spans TPU chips and halo exchange rides
-ICI; here (one chip + CPU fallback) it demonstrates the API and the
+timing. On several GPUs the mesh spans the cards and halo exchange rides
+NVLink; on virtual CPU devices it demonstrates the API and the
 correctness invariant.
 
-Run:  CFDSIM_PLATFORM=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+Run:  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
          python examples/sharded_scaling.py
 """
 
-import os
 import sys
 import time
 from pathlib import Path
@@ -18,10 +17,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax
-
-if os.environ.get("CFDSIM_PLATFORM"):
-    jax.config.update("jax_platforms", os.environ["CFDSIM_PLATFORM"])
-
 import jax.numpy as jnp
 import numpy as np
 

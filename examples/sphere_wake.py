@@ -7,7 +7,7 @@ penalization drag against the Schiller–Naumann standard-drag correlation
 and the rear recirculation length against Johnson & Patel (1999)
 (L_r/D ≈ 0.87 at Re=100; steady axisymmetric wake below Re≈210).
 
-Run (TPU or CPU):
+Run (GPU or CPU):
     python examples/sphere_wake.py [--re 100] [--n 12] [--t 40]
 ``--n`` is cells per diameter (12 → 192×96×96 on the default box).
 """

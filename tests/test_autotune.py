@@ -75,16 +75,20 @@ def test_env_force_overrides(monkeypatch):
 
 def test_roofline_costs_and_classification():
     from cfdsim_tpu.cases import lid_cavity_mac
-    from cfdsim_tpu.utils.roofline import roofline, step_costs
+    from cfdsim_tpu.utils.roofline import (
+        published_peaks, roofline, step_costs)
 
     case = lid_cavity_mac(n=32, Re=100.0)
     costs = step_costs(case.step, case.state, jnp.float32(1.0))
     assert costs["flops"] > 32 * 32  # at least O(cells) work
     assert costs["bytes"] > 32 * 32 * 4
+    published = published_peaks("NVIDIA H100 80GB HBM3")
     row = roofline(case.step, case.state, 32 * 32, 1e6,
                    {"peak_flops": 1e12, "peak_bw": 1e11},
-                   jnp.float32(1.0))
+                   jnp.float32(1.0), published=published)
     assert row["bound"] in ("compute", "bandwidth")
     assert row["ceiling_cells_per_sec"] > 0
     assert 0 < row["pct_of_roof"] < 1e6
-    assert row["v5e_ceiling_cells_per_sec"] > 0
+    # the data-sheet ceiling sits above the one from the slower peaks
+    assert (row["published_ceiling_cells_per_sec"]
+            > row["ceiling_cells_per_sec"])

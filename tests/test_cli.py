@@ -6,12 +6,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parent.parent
 
 
 def _cli(*args, timeout=420):
     env = dict(os.environ)
-    env["CFDSIM_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     return subprocess.run(
         [sys.executable, "-m", "cfdsim_tpu", *args],
@@ -162,3 +164,34 @@ def test_run_resume_bit_exact(tmp_path):
         for field in ("u", "v", "p"):
             np.testing.assert_array_equal(fa[key][field][:], fb[key][field][:])
         assert fa[key].attrs["time"] == fb[key].attrs["time"]
+
+
+@pytest.mark.parametrize("builder,n,given,expected", [
+    ("lid_cavity", 16, None, (50.0, 20.0)),  # coarse: the absolute bounds
+    ("lid_cavity", 256, None, "1/h"),  # fine collocated: 0.5/h
+    ("lid_cavity_mac", 256, None, (50.0, 20.0)),  # exact projection
+    ("lid_cavity", 256, 7.0, (7.0, 20.0)),  # a given bound is absolute
+])
+def test_div_bounds(builder, n, given, expected):
+    from cfdsim_tpu import cases
+    from cfdsim_tpu.__main__ import COLLOCATED_DIV_H, div_bounds
+
+    case = getattr(cases, builder)(n=n)
+    if expected == "1/h":
+        b = COLLOCATED_DIV_H / min(case.grid.dx, case.grid.dy)
+        assert b > 50.0
+        expected = (b, b)
+    assert div_bounds(case, given) == expected
+
+
+def test_run_that_blows_up_is_stopped_by_the_divergence_check(tmp_path):
+    # one Jacobi sweep per projection leaves the divergence to grow until
+    # it passes the default bound, before the velocity bound trips
+    r = _cli("run", "cavity", "--n", "24", "--Re", "1000",
+             "--poisson", "jacobi:1", "--chunk-steps", "10",
+             "--max-steps", "400", "--t-final", "100",
+             "--out", str(tmp_path / "run"))
+    assert r.returncode == 0, r.stderr[-2000:]
+    report = json.loads(r.stdout.strip().splitlines()[-1])
+    assert report["stopped_reason"].startswith("unhealthy: high divergence")
+    assert report["final_step"] < 400

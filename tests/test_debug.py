@@ -70,7 +70,7 @@ def test_profiler_trace_noop_without_dir():
 def test_device_memory_stats_census():
     """Memory observability (VERDICT r4 #6): the live-array census works
     on every backend; allocator keys (peak bytes) appear only where the
-    backend exposes memory_stats (TPU yes, XLA CPU no) — both shapes
+    backend exposes memory_stats (GPU yes, XLA CPU no) — both shapes
     must be well-formed ints."""
     from cfdsim_tpu.utils.profiling import PerfTracker, device_memory_stats
 

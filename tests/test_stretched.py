@@ -1,6 +1,6 @@
 """Stretched-grid MAC solver + fast-diagonalization Poisson (the
 boundary-layer-refinement capability of the reference's gmsh/FEM path,
-v1.jl:24-97, on structured TPU-shaped grids)."""
+v1.jl:24-97, on structured grids)."""
 
 import jax
 import jax.numpy as jnp
